@@ -16,19 +16,20 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 jax.config.update("jax_enable_x64", True)  # CPU demo: float64, like the reference
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
 import jax.numpy as jnp
 
-from gparml_tpu import data
-from gparml_tpu.models import gplvm
-from gparml_tpu.models import params as P
+from gparml import data
+from gparml.utils import compile_cache
+from gparml.models import gplvm
+from gparml.models import params as P
 
 
 def knn_accuracy(x, labels):
     d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
     np.fill_diagonal(d2, np.inf)
     return float((labels[d2.argmin(1)] == labels).mean())
+
+compile_cache.enable()
 
 
 def main():

@@ -1,19 +1,15 @@
-"""GPLVM training at N far beyond one chip's row-major HBM ceiling
-(BASELINE config 5 scale: N=10^7, M=500 on ONE TPU v5e) — the user-facing
-recipe behind docs/DESIGN.md §5's round-5 capture:
+"""GPLVM training at BASELINE config 5 scale (N=10^7, Q=10, M=500) on one
+GPU — the user-facing recipe:
 
-  * ``layout='qn'`` stores every N-sized array transposed ((Q, N)/(D, N)),
-    so nothing pays the (N, small-lane) 12.8x HBM tiling expansion;
-  * ``scg_mode='auto'`` switches to the host-stepped SCG driver above 2e6
+  * ``stats_impl="auto"`` takes the fused GPU psi kernels for float32 on a
+    GPU (the XLA scan elsewhere);
+  * ``scg_mode="auto"`` switches to the host-stepped SCG driver above 2e6
     rows: one device program per iteration instead of one whole-fit
-    while_loop program (which exceeds what a worker survives at this
-    scale), with the optimizer state donated between programs.
+    while_loop program, with the optimizer state donated between programs.
 
-Defaults are CI-sized; the hardware-measured shape is
+Defaults are CPU-sized; the config-5 shape is
 
     python examples/huge_n_single_chip.py --n 10000000 --m 500 --iters 3
-
-(13.3 s per bound+grad eval, monotone SCG, on one v5e — 2026-08-19).
 """
 
 import argparse
@@ -36,35 +32,32 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(__file__), "..", ".jax_cache_tpu"))
     import jax.numpy as jnp
-    from gparml_tpu.models import gplvm
-    from gparml_tpu.models import params as P
+    from gparml.models import gplvm
+    from gparml.models import params as P
+    from gparml.utils import compile_cache
 
+    compile_cache.enable()
     print(f"device: {jax.devices()[0].device_kind}")
     rng = np.random.default_rng(0)
     F = jnp.float32
 
-    # Generate DIRECTLY in the transposed layout — (D, N)/(Q, N) — so the
-    # compact form is what uploads to the chip.
-    y_t = jnp.asarray(rng.standard_normal((args.d, args.n)), F)
-    mu_t = jnp.asarray(rng.standard_normal((args.q, args.n)), F)
-    us_t = jnp.full((args.q, args.n), float(np.log(0.5)), F)
+    y = jnp.asarray(rng.standard_normal((args.n, args.d)), F)
+    mu = jnp.asarray(rng.standard_normal((args.n, args.q)), F)
+    s = jnp.full((args.n, args.q), 0.5, F)
     z = jnp.asarray(rng.standard_normal((args.m, args.q)), F)
     glob = jax.tree.map(lambda a: a.astype(F),
                         P.make_global(z, 1.0, np.ones(args.q), 10.0))
-    params = P.GPLVMParams(glob=glob, lat=P.LatentParams(mu=mu_t, u_s=us_t))
+    params = P.GPLVMParams(glob=glob, lat=P.make_latents(mu, s))
 
     cfg = gplvm.GPLVMConfig(
         q=args.q, num_inducing=args.m,
-        layout="qn", y_layout="dn",   # the single-chip large-N affordance
-        stats_impl="auto",            # pallas on TPU, XLA scan elsewhere
+        stats_impl="auto",            # fused kernels on a GPU, XLA elsewhere
         scg_mode="auto",              # stepped driver above 2e6 rows
     )
 
     t0 = time.perf_counter()
-    res = gplvm.fit(params, y_t, cfg, iters=args.iters)
+    res = gplvm.fit(params, y, cfg, iters=args.iters)
     bound = float(res.bound)
     wall = time.perf_counter() - t0
     hist = np.asarray(res.history)

@@ -1,7 +1,7 @@
 """Sparse variational GP regression demo (BASELINE config 1: N=1k, D=1, M=10).
 
 Fits hyperparameters + inducing points with SCG and reports test RMSE and the
-recovered noise level. Runs anywhere (CPU ok); uses the TPU if present.
+recovered noise level. Runs anywhere (CPU ok); uses a GPU if present.
 
     python examples/sparse_gp_regression.py
 """
@@ -13,13 +13,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 jax.config.update("jax_enable_x64", True)  # CPU demo: float64, like the reference
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
 import jax.numpy as jnp
 
-from gparml_tpu import data
-from gparml_tpu.models import params as P
-from gparml_tpu.models import sgpr
+from gparml import data
+from gparml.utils import compile_cache
+from gparml.models import params as P
+from gparml.models import sgpr
+
+compile_cache.enable()
 
 
 def main():

@@ -2,8 +2,8 @@
 
 Configures a fresh virtual-CPU backend, optionally joins a jax.distributed
 process group on localhost, then invokes the CLI — one spawned process per
-"host". This is how the 2-process x 4-device fixture emulates a 2-host pod
-slice without TPU hardware (SURVEY.md §4 "fake backend" strategy extended
+"host". This is how the 2-process x 4-device fixture emulates a 2-host
+cluster on one machine (SURVEY.md §4 "fake backend" strategy extended
 across the process boundary).
 """
 
@@ -34,11 +34,12 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", a.devices)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from gparml.utils import compile_cache
+
+    compile_cache.enable()
 
     if a.process_id is not None:
-        from gparml_tpu.parallel import distributed
+        from gparml.parallel import distributed
 
         distributed.initialize(
             coordinator_address=f"localhost:{a.port}",
@@ -46,7 +47,7 @@ def main():
             process_id=a.process_id,
         )
 
-    from gparml_tpu import cli
+    from gparml import cli
 
     cli_args = [arg for arg in a.cli_args if arg != "--"]
     summary = cli.main(cli_args)

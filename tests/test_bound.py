@@ -1,14 +1,13 @@
 """Bound parity (B-form vs oracle's A-form), dense-GP limit, and gradient
 checks via finite differences (SURVEY.md §4 items 1-2)."""
 
-import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.test_util import check_grads
 
-from gparml_tpu.ops import bound, psi
+from gparml.ops import bound, psi
 from tests import oracle
 from tests.conftest import make_problem
 
@@ -104,7 +103,7 @@ def test_predict_recovers_function(rng):
 def test_predict_uncertain_matches_monte_carlo(rng):
     """bound.predict_uncertain (GPLVM reconstruction through Psi1
     expectations) vs Monte-Carlo integration of bound.predict over q(x*)."""
-    from gparml_tpu.ops import bound, psi
+    from gparml.ops import bound, psi
 
     n, d, q, m = 60, 2, 2, 12
     x = rng.standard_normal((n, q))
@@ -137,7 +136,7 @@ def test_predict_uncertain_blocked_matches_per_point_solves(rng):
     NOT a multiple of the block (padding discarded)."""
     from jax.scipy.linalg import solve_triangular
 
-    from gparml_tpu.ops import bound, psi
+    from gparml.ops import bound, psi
 
     n, d, q, m = 80, 2, 2, 12
     x = rng.standard_normal((n, q))
@@ -247,14 +246,12 @@ def test_f32_bound_finite_at_large_m(rng):
     1e-6*tr/M jitter every f32 GPLVM bound at M >= 200 was NaN (observed
     cond(Psi2+eps) ~ 3.5e8, f32 Cholesky breakdown)."""
     import jax
-    from gparml_tpu import data
-    from gparml_tpu.models import gplvm
+    from gparml import data
+    from gparml.models import gplvm
 
     y, _ = data.synthetic_gplvm(n=3000, d=6, q_true=2, seed=9)
-    # m=200 is where the f32 breakdown appeared; a second size under
-    # GPARML_TPU_SLOW crosses the next lane-block boundary
-    ms = (200, 260) if os.environ.get("GPARML_TPU_SLOW") else (200,)
-    for m in ms:
+    # m=200 is where the f32 breakdown appeared
+    for m in (200,):
         cfg = gplvm.GPLVMConfig(q=3, num_inducing=m, stats_impl="xla")
         p0 = gplvm.init_params(
             jax.random.key(0), jnp.asarray(y, jnp.float32), cfg
@@ -267,7 +264,7 @@ def test_f32_bound_finite_at_large_m(rng):
 
 
 def test_f32_chol_psi2_fallback_has_finite_gradients(rng):
-    """Regression (ADVICE r3): when the first jitter rung's Cholesky NaNs,
+    """Regression: when the first jitter rung's Cholesky NaNs,
     the old two-cholesky + jnp.where select kept the NaN primal in the
     autodiff graph — forward finite, gradients all-NaN (a NaN-primal
     Cholesky VJP poisons the cotangent even when where() discards it).

@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gparml_tpu import checkpoint, data
-from gparml_tpu.models import gplvm
-from gparml_tpu.models import params as P
+from gparml import checkpoint, data
+from gparml.models import gplvm
+from gparml.models import params as P
 
 
 def test_partitioned_roundtrip(tmp_path, rng):
@@ -51,7 +51,7 @@ def test_checkpoint_roundtrip(tmp_path, rng):
 def test_cli_end_to_end_and_resume(tmp_path, rng):
     """Full reference workflow: partitioned inputs -> fit -> embeddings saved
     -> resume with --load improves (or keeps) the bound."""
-    from gparml_tpu import cli
+    from gparml import cli
 
     y, _ = data.synthetic_gplvm(n=48, d=5, q_true=1, seed=1)
     inputs = tmp_path / "inputs"
@@ -87,7 +87,7 @@ def test_cli_scg_mode_stepped(tmp_path, rng):
     """--scg-mode stepped drives the host-stepped SCG driver end-to-end
     (the config-5 large-N driver, here at CI scale) through both model
     families' CLI paths."""
-    from gparml_tpu import cli
+    from gparml import cli
 
     y, _ = data.synthetic_gplvm(n=32, d=4, q_true=1, seed=9)
     inputs = tmp_path / "inputs"
@@ -115,7 +115,7 @@ def test_cli_scg_mode_stepped(tmp_path, rng):
 
 
 def test_cli_adam_and_fixed_beta(tmp_path, rng):
-    from gparml_tpu import cli
+    from gparml import cli
 
     y, _ = data.synthetic_gplvm(n=32, d=4, q_true=1, seed=2)
     inputs = tmp_path / "inputs"
@@ -131,7 +131,7 @@ def test_cli_adam_and_fixed_beta(tmp_path, rng):
 def test_cli_fixed_embeddings_sgpr_mode(tmp_path, rng):
     """--fixed-embeddings: embeddings folder holds OBSERVED inputs; the CLI
     runs sparse GP regression (reference §3.2)."""
-    from gparml_tpu import cli
+    from gparml import cli
 
     x = np.sort(rng.uniform(-2, 2, (60, 1)), axis=0)
     y = np.sin(2 * x) + 0.1 * rng.standard_normal((60, 1))
@@ -152,7 +152,7 @@ def test_cli_fixed_embeddings_sgpr_mode(tmp_path, rng):
 def test_cli_resume_uneven_n(tmp_path, rng):
     """N not divisible by the device count: the mesh pads latents, but
     checkpoints must store unpadded shapes so resume works anywhere."""
-    from gparml_tpu import cli
+    from gparml import cli
 
     y, _ = data.synthetic_gplvm(n=43, d=4, q_true=1, seed=3)  # 43 % 8 != 0
     inputs = tmp_path / "inputs"
@@ -172,10 +172,10 @@ def test_cli_qn_resume_stays_host_side(tmp_path, rng, monkeypatch):
     """--layout qn --load: the resume path must hand make_latents RAW numpy
     (its host branch transposes so only the compact (Q, N) form uploads) and
     select inducing candidates by host-side numpy indexing. Wrapping
-    jnp.asarray in cli would re-introduce the 12.8x lane-padded (N, Q)
-    upload the layout exists to avoid (ADVICE r3)."""
-    from gparml_tpu import cli
-    from gparml_tpu.models import params as P
+    jnp.asarray in cli would re-introduce the whole-array (N, Q) upload
+    the transposed layout exists to avoid."""
+    from gparml import cli
+    from gparml.models import params as P
 
     y, _ = data.synthetic_gplvm(n=40, d=4, q_true=1, seed=5)
     inputs = tmp_path / "inputs"
@@ -194,7 +194,7 @@ def test_cli_qn_resume_stays_host_side(tmp_path, rng, monkeypatch):
         seen["s_is_numpy"] = not isinstance(s, jnp.ndarray)
         return orig(mu, s, **kw)
 
-    # cli does `from gparml_tpu.models import params as P` inside main(), so
+    # cli does `from gparml.models import params as P` inside main(), so
     # patching the module attribute intercepts its call
     monkeypatch.setattr(P, "make_latents", spy)
     s2 = cli.main(argv + ["--load"])
@@ -204,7 +204,7 @@ def test_cli_qn_resume_stays_host_side(tmp_path, rng, monkeypatch):
 
 
 def test_host_candidate_rows_compact_and_deterministic(rng):
-    from gparml_tpu.utils.init import host_candidate_rows
+    from gparml.utils.init import host_candidate_rows
 
     x = rng.standard_normal((20000, 3))
     c1 = host_candidate_rows(x, m=8, seed=7)
@@ -220,7 +220,7 @@ def test_host_candidate_rows_compact_and_deterministic(rng):
 def test_cli_sgpr_resume(tmp_path, rng):
     """--fixed-embeddings + --load must restore globals from checkpoint.npz
     (round-1 gap: --load was silently ignored outside the GPLVM branch)."""
-    from gparml_tpu import cli
+    from gparml import cli
 
     x = np.sort(rng.uniform(-2, 2, (60, 1)), axis=0)
     y = np.sin(2 * x) + 0.1 * rng.standard_normal((60, 1))
@@ -244,7 +244,7 @@ def test_cli_sgpr_resume(tmp_path, rng):
 
 def test_cli_svgp_resume(tmp_path, rng):
     """--optimizer svgp + --load restores SVGPParams and continues training."""
-    from gparml_tpu import cli
+    from gparml import cli
 
     x = rng.uniform(-2, 2, (200, 1))
     y = np.sin(2 * x) + 0.1 * rng.standard_normal((200, 1))
@@ -268,7 +268,7 @@ def test_cli_svgp_resume(tmp_path, rng):
 
 def test_cli_svgp_mode(tmp_path, rng):
     """--fixed-embeddings --optimizer svgp: minibatch stochastic training."""
-    from gparml_tpu import cli
+    from gparml import cli
 
     x = rng.uniform(-2, 2, (200, 1))
     y = np.sin(2 * x) + 0.1 * rng.standard_normal((200, 1))
@@ -287,8 +287,8 @@ def test_cli_svgp_mode(tmp_path, rng):
 
 def test_cli_trace_timing_wall_column(tmp_path, rng):
     """--trace-timing: history rows carry REAL per-iteration wall clocks
-    (VERDICT r2 item 7; the reference printed true per-iteration timings)."""
-    from gparml_tpu import cli
+    (the reference printed true per-iteration timings)."""
+    from gparml import cli
 
     y, _ = data.synthetic_gplvm(n=40, d=4, q_true=1, seed=3)
     inputs = tmp_path / "inputs"
@@ -312,9 +312,9 @@ def test_cli_trace_timing_wall_column(tmp_path, rng):
 
 def test_cli_profile_writes_trace(tmp_path, rng):
     """--profile DIR: a jax.profiler (Perfetto/XProf) trace of the fit lands
-    in DIR (SURVEY §5 tracing row — the TPU-native upgrade of the
+    in DIR (SURVEY §5 tracing row — the device-timeline upgrade of the
     reference's per-pass wall-clock prints)."""
-    from gparml_tpu import cli
+    from gparml import cli
 
     y, _ = data.synthetic_gplvm(n=40, d=4, q_true=1, seed=3)
     inputs = tmp_path / "inputs"

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gparml_tpu import data
-from gparml_tpu.models import gplvm, sgpr
-from gparml_tpu.models import params as P
+from gparml import data
+from gparml.models import gplvm, sgpr
+from gparml.models import params as P
 
 
 def test_sgpr_recovers_noise_and_fits():
@@ -158,7 +158,7 @@ def test_fit_shape_validation():
 
 
 def test_sgpr_f32_fit_matches_f64_optimum():
-    """float32 SCG fit convergence — the production TPU dtype. Before the
+    """float32 SCG fit convergence — the production dtype. Before the
     bound's anti-runaway clamps (ops/bound.py) this exact fit diverged to
     beta ~ 2.2e4 / F ~ +5e9 by climbing an ill-conditioning artifact of the
     f32 trace term; with them it must land at the float64 optimum."""
@@ -214,13 +214,13 @@ def test_gplvm_qn_layout_matches_nq(rng):
     assert mu_nat.shape == (40, 2) and s_nat.shape == (40, 2)
 
     # mesh + qn is rejected (the sharded path owns (N, Q) rows)
-    from gparml_tpu.parallel import mesh as mesh_lib
+    from gparml.parallel import mesh as mesh_lib
     with pytest.raises(ValueError):
         gplvm.fit(p_qn, yj, cfg_qn, iters=1, mesh=mesh_lib.make_mesh(2))
 
 
 def test_cli_qn_layout_end_to_end(tmp_path, rng):
-    from gparml_tpu import cli
+    from gparml import cli
 
     y, _ = data.synthetic_gplvm(n=48, d=5, q_true=1, seed=12)
     inputs = tmp_path / "inputs"

@@ -1,6 +1,6 @@
 """Multi-process ("remote backend") tests: the reference's cluster MapReduce
 story run as a REAL 2-process jax.distributed group on localhost, 4 virtual
-CPU devices per process (a 2-host pod-slice stand-in).
+CPU devices per process (a 2-host cluster stand-in).
 
 What these prove that the in-process mesh tests cannot:
   * per-host ingestion (`data.load_rows` + `make_array_from_process_local_data`)
@@ -19,7 +19,7 @@ import sys
 import numpy as np
 import pytest
 
-from gparml_tpu import data
+from gparml import data
 
 RUNNER = os.path.join(os.path.dirname(__file__), "multihost_runner.py")
 
@@ -169,20 +169,15 @@ def _assert_monotone_accepted(st_dir):
     assert any(r["accepted"] for r in rows)
 
 
-@pytest.mark.skipif(
-    not os.environ.get("GPARML_TPU_SLOW"),
-    reason="config-5-shape run (~minutes on CPU); set GPARML_TPU_SLOW=1",
-)
+@pytest.mark.slow  # config-5-shape run: minutes on the CPU
 def test_local_config5_shape(tmp_path):
     """BASELINE config 5 scaled down by device count, not by shape family:
     N=1e5, Q=10, M=500, f32, XLA engine, full 8-device data-parallel SCG.
     Proves the config-5 shape end to end: sharded ingestion, psum'd M=500
     statistics, monotone accepted-step bound, peak RSS consistent with the
-    blocked scan's O(block·M²) working set (measured numbers:
-    docs/DESIGN.md §5). N is CI-budget-bound: one bound+grad eval at this
+    blocked scan's O(block·M²) working set. N is CI-budget-bound: one bound+grad eval at this
     shape is ~0.9e12 f32 flops ≈ 11 min on the 1-core CI host (N=2e5 took
-    >75 min for the one SCG iteration and timed out); the N axis itself is
-    proven on real hardware (N=1e6 and, transposed, N=1e7 on one v5e)."""
+    >75 min for the one SCG iteration and timed out)."""
     inputs = _make_config5_inputs(tmp_path, 100_000)
     emb, st = tmp_path / "emb", tmp_path / "st"
     base = ["-i", str(inputs), "-e", str(emb), "-s", str(st),
@@ -200,10 +195,7 @@ def test_local_config5_shape(tmp_path):
     assert 0 < s["peak_rss_mb"] < 18000, s["peak_rss_mb"]
 
 
-@pytest.mark.skipif(
-    not os.environ.get("GPARML_TPU_SLOW"),
-    reason="config-5-shape run (~minutes on CPU); set GPARML_TPU_SLOW=1",
-)
+@pytest.mark.slow  # config-5-shape run: minutes on the CPU
 def test_remote_config5_m500(tmp_path):
     """The REAL 2-process (2 hosts x 4 devices) distributed path at the
     pod-scale M=500: per-host ingestion, cross-process psum of the M²-float
@@ -215,9 +207,9 @@ def test_remote_config5_m500(tmp_path):
     a 1-core CI host the 8 timesliced virtual devices spend ~95 s of
     single-core compute in the map stage before the first psum at N=2e5 —
     the arrival skew cannot fit the window. A pure test-rig limit: a real
-    pod chip reaches its first psum milliseconds after dispatch. The full
+    device reaches its first psum milliseconds after dispatch. The full
     N=2e5 shape runs in test_local_config5_shape (same program, no gloo);
-    this test pins the DCN (multi-process) path at the config-5 M."""
+    this test pins the multi-process path at the config-5 M."""
     inputs = _make_config5_inputs(tmp_path, 40_000)
     emb, st = tmp_path / "emb", tmp_path / "st"
     base = ["-i", str(inputs), "-e", str(emb), "-s", str(st),
@@ -231,8 +223,8 @@ def test_remote_config5_m500(tmp_path):
 
 
 def test_remote_svgp_train_resume(sgpr_folders):
-    """Data-parallel SVGP over the REAL 2-process group (VERDICT r2 item 2:
-    the -p remote hard-error on svgp is lifted): train, checkpoint, resume.
+    """Data-parallel SVGP over the REAL 2-process group (-p remote runs
+    svgp): train, checkpoint, resume.
     This is the ONLY default-CI coverage of svgp's elbo_sharded over a real
     process group and its checkpoint-restore branch — stays un-gated; step
     counts trimmed instead (spawn + compile dominate the cost anyway)."""

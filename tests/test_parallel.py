@@ -5,12 +5,13 @@ an exact sum — the reference validated this by running 1 vs k worker
 processes; here it's 1 vs k mesh shards."""
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
-from gparml_tpu.ops import bound, psi
-from gparml_tpu.parallel import mesh as mesh_lib
-from gparml_tpu.parallel import stats as pstats
+from gparml.ops import bound, psi
+from gparml.parallel import mesh as mesh_lib
+from gparml.parallel import stats as pstats
 from tests.conftest import make_problem
 
 
@@ -136,7 +137,7 @@ def test_sgpr_blocked_scan_inside_shard_map(rng):
 
 def test_sgpr_predict_under_mesh(rng):
     """predict with sharded training data matches the single-device result."""
-    from gparml_tpu.models import sgpr
+    from gparml.models import sgpr
 
     x = np.sort(rng.uniform(-2, 2, (40, 1)), axis=0)
     y = np.sin(2 * x)
@@ -152,49 +153,12 @@ def test_sgpr_predict_under_mesh(rng):
     np.testing.assert_allclose(np.asarray(var), np.asarray(var_ref), rtol=1e-8)
 
 
-def test_pallas_m_limit_fallback(rng):
-    """impl='pallas' beyond _PALLAS_M_LIMIT must silently reroute to the XLA
-    scan and still produce correct stats AND grads (VERDICT r2 item 5: the
-    framework must be correct at any M, not just fast below the limit)."""
-    m_big = pstats._PALLAS_M_LIMIT + 60  # 700 at the current limit
-    y, mu, s, z, sf2, alpha, beta = make_problem(rng, n=12, d=2, q=2, m=m_big)
-    zj, alphaj = jnp.asarray(z), jnp.asarray(alpha)
-
-    def obj(impl):
-        def f(zj, mu_, s_):
-            st = pstats.suff_stats_auto(
-                jnp.asarray(y), mu_, s_, zj, sf2, alphaj, impl=impl
-            )
-            return st.psi0 + jnp.sum(st.psi1_y) + jnp.sum(st.psi2) + st.kl
-        return jax.jit(jax.value_and_grad(f, argnums=(0, 1, 2)))(
-            zj, jnp.asarray(mu), jnp.asarray(s)
-        )
-
-    f_ref, g_ref = obj("xla")
-    f_p, g_p = obj("pallas")  # reroutes: M > limit
-    np.testing.assert_allclose(float(f_p), float(f_ref), rtol=1e-12)
-    for a, b in zip(g_p, g_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12)
-
-    # and under a mesh (suff_stats_sharded takes the same reroute)
-    m8 = mesh_lib.make_mesh(8)
-    ys, mus, ss, w = mesh_lib.shard_data(m8, y, mu, s)
-    st = pstats.suff_stats_sharded(
-        ys, mus, ss, zj, sf2, alphaj, mesh=m8, weights=w, impl="pallas"
-    )
-    ref = psi.suff_stats(
-        jnp.asarray(y), jnp.asarray(mu), jnp.asarray(s), zj, sf2, alphaj
-    )
-    for a, b in zip(ref, st):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-12)
-
-
 def test_stepped_scg_matches_fused_under_mesh(rng):
     """The host-stepped SCG driver (the config-5-scale mode) under a data
     mesh: sharded latents/data ride the per-iteration programs unchanged,
     and the trajectory matches the fused while_loop driver."""
-    from gparml_tpu.models import gplvm
-    from gparml_tpu.models import params as P
+    from gparml.models import gplvm
+    from gparml.models import params as P
 
     y, mu, s, z, sf2, alpha, beta = make_problem(rng, n=24, d=3, q=2, m=5)
     m8 = mesh_lib.make_mesh(8)
@@ -213,3 +177,46 @@ def test_stepped_scg_matches_fused_under_mesh(rng):
     k = min(len(hists["fused"]), len(hists["stepped"]))
     np.testing.assert_allclose(hists["fused"][:k], hists["stepped"][:k],
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("requested,platform,dtype,latent,want", [
+    ("auto", "gpu", jnp.float32, True, "gpu"),
+    ("auto", "gpu", jnp.float64, True, "xla"),   # float64: the reference engine
+    ("auto", "gpu", jnp.float32, False, "xla"),  # SGPR statistics
+    ("auto", "cpu", jnp.float32, True, "xla"),
+    ("xla", "gpu", jnp.float32, True, "xla"),
+    ("gpu", "gpu", jnp.float32, True, "gpu"),
+])
+def test_choose_engine(requested, platform, dtype, latent, want):
+    assert pstats.choose_engine(requested, dtype, latent=latent,
+                                platform=platform) == want
+
+
+@pytest.mark.parametrize("requested,platform,dtype,match", [
+    ("gpu", "cpu", jnp.float32, "needs a GPU"),
+    ("gpu", "gpu", jnp.float64, "float32"),
+    ("pallas", "gpu", jnp.float32, "unknown psi engine"),
+])
+def test_choose_engine_refuses(requested, platform, dtype, match):
+    """An explicit GPU request off the GPU (or in float64) is an error; it
+    never falls back to the Pallas interpreter."""
+    with pytest.raises(ValueError, match=match):
+        pstats.choose_engine(requested, dtype, platform=platform)
+
+
+def test_gpu_engine_off_gpu_raises_through_model(rng):
+    """stats_impl='gpu' on this (CPU) backend fails at trace time, single
+    device and under a mesh."""
+    from gparml.models import gplvm
+
+    y, mu, s, z, sf2, alpha, beta = make_problem(rng, n=16, d=2, q=2, m=4)
+    cfg = gplvm.GPLVMConfig(q=2, num_inducing=4, stats_impl="gpu")
+    p = gplvm.init_params(jax.random.key(0), jnp.asarray(y, jnp.float32), cfg)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        gplvm.log_bound(p, jnp.asarray(y, jnp.float32), cfg)
+    m8 = mesh_lib.make_mesh(8)
+    ys, mus, ss, w = mesh_lib.shard_data(m8, y, mu, s)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        pstats.suff_stats_sharded(ys, mus, ss, jnp.asarray(z), sf2,
+                                  jnp.asarray(alpha), mesh=m8, weights=w,
+                                  impl="gpu")

@@ -1,18 +1,14 @@
 """(Q, N)-native ("transposed layout") psi statistics and model path.
 
-The single-chip large-N affordance (docs/DESIGN.md §5): XLA:TPU tiles f32
-HBM arrays to (8, 128), so (N, Q<=10) arrays physically cost 12.8x their
-logical bytes; stored and consumed (Q, N)/(D, N) the pad is 1.6x. These
-tests pin the transposed kernels to the row-major ones (values AND grads,
-interpret mode on the forced-CPU backend), the out-of-window fallback, and
-the model-level dispatch (GPLVMConfig layout='qn', y_layout='dn').
+The layout stores latents/inputs (Q, N) and observations (D, N) on a single
+device. These tests pin the transposed blocked scan (psi.suff_stats_t) to
+the row-major engine (values AND grads) and the model-level dispatch
+(GPLVMConfig layout='qn', y_layout='dn').
 
 Reference scope: GParML has no analogue (flat NumPy is layout-free);
-this is TPU-memory-layout engineering on top of the same math
+this is memory-layout engineering on top of the same math
 (SURVEY.md Appendix A).
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -20,8 +16,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gparml_tpu.models import gplvm
-from gparml_tpu.ops import psi_pallas
+from gparml.models import gplvm
 
 
 def _data(n, q, d, m, seed=0):
@@ -41,56 +36,6 @@ def _loss(st, m):
             + st.psi0 + st.yy + st.kl)
 
 
-@pytest.mark.parametrize("m,n,tile", [
-    (140, 203, 16),   # Ml=256 flat window; N not a lane multiple; 8 sub-tiles
-    pytest.param(
-        300, 150, 64,  # Ml=384 flat window; sub-tile != tile hint
-        marks=pytest.mark.skipif(
-            not os.environ.get("GPARML_TPU_SLOW"),
-            reason="interpret-mode Ml=384 ladder (~18 s); the Ml=256 case "
-                   "covers the same kernel path; set GPARML_TPU_SLOW=1"),
-    ),
-])
-def test_suff_stats_t_matches_row_major(m, n, tile):
-    q, d = 5, 4
-    mu, s, y, z, al, w = _data(n, q, d, m)
-    sf2 = jnp.float32(1.7)
-
-    def f_nq(args):
-        mu, s, y, z, sf2, al = args
-        st = psi_pallas.suff_stats(y, mu, s, z, sf2, al, weights=w,
-                                   tile=tile, interpret=True)
-        return _loss(st, m)
-
-    def f_qn(args):
-        mu, s, y, z, sf2, al = args
-        st = psi_pallas.suff_stats_t(y.T, mu.T, s.T, z, sf2, al, weights=w,
-                                     tile=tile, interpret=True)
-        return _loss(st, m)
-
-    args = (mu, s, y, z, sf2, al)
-    v1, g1 = jax.jit(jax.value_and_grad(f_nq))(args)
-    v2, g2 = jax.jit(jax.value_and_grad(f_qn))(args)
-    np.testing.assert_allclose(float(v1), float(v2), rtol=1e-6)
-    for a, b in zip(g1, g2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-5, atol=1e-5 * float(jnp.max(jnp.abs(a))))
-
-
-def test_suff_stats_t_fallback_small_m():
-    """Ml=128 is outside the flat window: suff_stats_t must still be correct
-    (it transposes into the row-major kernels)."""
-    q, d, m, n = 4, 3, 60, 96
-    mu, s, y, z, al, w = _data(n, q, d, m, seed=3)
-    sf2 = jnp.float32(0.9)
-    st_nq = psi_pallas.suff_stats(y, mu, s, z, sf2, al, weights=w,
-                                  tile=16, interpret=True)
-    st_qn = psi_pallas.suff_stats_t(y.T, mu.T, s.T, z, sf2, al, weights=w,
-                                    tile=16, interpret=True)
-    for a, b in zip(st_nq, st_qn):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6)
-
-
 def test_gplvm_qn_native_bound_and_fit():
     """Model-level dispatch: layout='qn' + y_layout='dn' must reproduce the
     row-major bound/gradients from identical parameters and train."""
@@ -99,24 +44,21 @@ def test_gplvm_qn_native_bound_and_fit():
     y = jnp.asarray(rng.standard_normal((n, d)), jnp.float32)
     key = jax.random.PRNGKey(0)
 
-    cfg_nq = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="pallas")
+    cfg_nq = gplvm.GPLVMConfig(q=q, num_inducing=m)
     p_nq = gplvm.init_params(key, y, cfg_nq)
 
-    cfg_qn = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="pallas",
-                               layout="qn", y_layout="dn")
+    cfg_qn = gplvm.GPLVMConfig(q=q, num_inducing=m, layout="qn", y_layout="dn")
     p_qn = gplvm.init_params(key, y.T, cfg_qn)
 
-    # value_and_grad gives the bound too — separate log_bound calls would
-    # double the interpret-mode kernel executions for no extra coverage
+    # value_and_grad gives the bound too
     v_nq, g_nq = jax.jit(lambda p, y: gplvm.neg_bound_value_and_grad(p, y, cfg_nq))(p_nq, y)
     v_qn, g_qn = jax.jit(lambda p, y: gplvm.neg_bound_value_and_grad(p, y, cfg_qn))(p_qn, y.T)
     b_qn = -v_qn
     # f32 + different accumulation orders between the two layouts: observed
     # up to ~2e-6 relative on the bound (shape-dependent)
     np.testing.assert_allclose(float(v_nq), float(v_qn), rtol=5e-6)
-    # Interpret-mode dots are bf16-class and the two layouts accumulate in
-    # different orders, so compare at gradient SCALE (both sit ~7e-4 of the
-    # XLA engine; the real-Mosaic parity gate lives in tpu_smoke_runner.py).
+    # The two layouts accumulate in different orders, so compare at
+    # gradient SCALE.
     g1 = np.asarray(g_nq.lat.mu)
     np.testing.assert_allclose(np.asarray(g_qn.lat.mu), g1.T,
                                atol=3e-3 * np.max(np.abs(g1)))
@@ -134,9 +76,8 @@ def test_gplvm_qn_native_bound_and_fit():
 @pytest.mark.parametrize("block", [None, 50])
 def test_psi_suff_stats_t_blocked_scan(block):
     """The (Q, N)-native blocked XLA scan (psi.suff_stats_t) matches the
-    row-major engine in values AND grads — the correct any-M fallback for
-    qn shapes outside the Pallas flat window."""
-    from gparml_tpu.ops import psi
+    row-major engine in values AND grads."""
+    from gparml.ops import psi
 
     q, d, m, n = 4, 3, 25, 200
     mu, s, y, z, al, w = _data(n, q, d, m, seed=7)
@@ -163,16 +104,16 @@ def test_psi_suff_stats_t_blocked_scan(block):
 
 
 def test_gplvm_qn_large_m_routes_to_transposed_scan():
-    """M beyond the pallas engine limit with layout='qn' must stay correct
-    (and must NOT whole-array-transpose: the dispatch goes through
-    psi.suff_stats_t). Model-level parity against the row-major XLA path."""
+    """Large M with layout='qn' must stay correct (and must NOT
+    whole-array-transpose: the dispatch goes through psi.suff_stats_t).
+    Model-level parity against the row-major XLA path."""
     rng = np.random.default_rng(9)
-    n, d, q, m = 64, 4, 3, 700   # m > _PALLAS_M_LIMIT = 640
+    n, d, q, m = 64, 4, 3, 700
     y = jnp.asarray(rng.standard_normal((n, d)), jnp.float32)
     key = jax.random.PRNGKey(2)
     cfg_nq = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="xla")
-    cfg_qn = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="pallas",
-                               layout="qn", y_layout="dn", block=32)
+    cfg_qn = gplvm.GPLVMConfig(q=q, num_inducing=m, layout="qn",
+                               y_layout="dn", block=32)
     p_nq = gplvm.init_params(key, y, cfg_nq)
     p_qn = gplvm.init_params(key, y.T, cfg_qn)
     # f32 accumulation order differs (block=32 transposed scan vs one-shot
@@ -195,7 +136,7 @@ def test_sgpr_suff_stats_blocked_and_transposed(block):
     """SGPR (s=None) statistics: the blocked row-major scan and the
     (Q, N)-native scan both match the one-shot K_NM products (values and
     grads) — K_NM never materializes beyond one (block, M) slab."""
-    from gparml_tpu.ops import psi
+    from gparml.ops import psi
 
     q, d, m, n = 3, 2, 15, 100
     mu, _, y, z, al, w = _data(n, q, d, m, seed=11)
@@ -231,7 +172,7 @@ def test_sgpr_suff_stats_blocked_and_transposed(block):
 def test_sgpr_qn_layout_model_level():
     """SGPR with layout='qn' (x (Q,N), y (D,N)) reproduces the row-major
     bound/fit — the regression-mode analogue of the GPLVM qn affordance."""
-    from gparml_tpu.models import sgpr
+    from gparml.models import sgpr
 
     rng = np.random.default_rng(13)
     n, q, d, m = 120, 2, 3, 18
@@ -264,7 +205,7 @@ def test_sgpr_qn_layout_model_level():
     np.testing.assert_allclose(np.asarray(v1), np.asarray(v2), rtol=1e-4)
 
     # mesh + qn rejected
-    from gparml_tpu.parallel import mesh as mesh_lib
+    from gparml.parallel import mesh as mesh_lib
     with pytest.raises(ValueError):
         sgpr.log_bound(g0_qn, xj.T, yj.T, cfg_qn,
                        mesh=mesh_lib.make_mesh(2))
@@ -312,7 +253,7 @@ def test_svgp_qn_layout_matches_nq():
     """SVGP with layout='qn' draws IDENTICAL minibatches (same key, same
     permutation, windows transposed from the lane axis), so the training
     trajectory matches the row-major run to f32 noise."""
-    from gparml_tpu.models import svgp
+    from gparml.models import svgp
 
     rng = np.random.default_rng(17)
     n, q, d, m = 300, 2, 3, 12
@@ -337,7 +278,7 @@ def test_svgp_qn_layout_matches_nq():
     np.testing.assert_allclose(float(r2.elbo), float(r1.elbo), rtol=1e-4)
 
     # mesh + qn rejected
-    from gparml_tpu.parallel import mesh as mesh_lib
+    from gparml.parallel import mesh as mesh_lib
     with pytest.raises(ValueError):
         svgp.fit(p0_qn, xj.T, yj.T, cfg_qn, steps=1,
                  mesh=mesh_lib.make_mesh(2))
@@ -347,7 +288,7 @@ def test_cli_qn_sgpr_and_svgp(tmp_path):
     """--layout qn now applies to the --fixed-embeddings modes too: the CLI
     transposes X/Y host-side and routes through SGPRConfig/SVGPConfig
     layout='qn'. Same folders, same bound scale as the row-major run."""
-    from gparml_tpu import cli, data
+    from gparml import cli, data
 
     rng = np.random.default_rng(23)
     n = 120
@@ -399,13 +340,12 @@ def test_gplvm_qn_xla_engine_transposes():
 
 
 def test_mesh_rejects_qn_layout_all_families():
-    """mesh x layout='qn' is DEFINED at the API level for every model family
-    (VERDICT r4 item 6): the transposed layout is the single-chip large-N
-    affordance; the sharded path owns (N, Q) rows, so fit()/_stats raise a
+    """mesh x layout='qn' is DEFINED at the API level for every model
+    family: the transposed layout is the single-device large-N affordance; the sharded path owns (N, Q) rows, so fit()/_stats raise a
     ValueError naming the fallback instead of silently mis-sharding.
     (SVGP's rejection is also pinned inside test_svgp_qn_matches_row_major.)"""
-    from gparml_tpu.models import sgpr, svgp
-    from gparml_tpu.parallel import mesh as mesh_lib
+    from gparml.models import sgpr, svgp
+    from gparml.parallel import mesh as mesh_lib
 
     rng = np.random.default_rng(7)
     n, d, q, m = 32, 2, 2, 6

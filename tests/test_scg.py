@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gparml_tpu.opt import scg
+from gparml.opt import scg
 
 
 def test_quadratic_exact_convergence():
@@ -107,7 +107,7 @@ def test_fit_shares_program_across_iteration_budgets():
     one bucket: the history capacity is bucketed and the budget rides as a
     runtime scalar, so a resume with a new -T hits the persistent compile
     cache instead of recompiling the fused fit."""
-    from gparml_tpu.models import gplvm
+    from gparml.models import gplvm
 
     rng = np.random.default_rng(0)
     y = jnp.asarray(rng.standard_normal((40, 4)), jnp.float32)

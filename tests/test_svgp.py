@@ -2,14 +2,13 @@
 bound, training recovers the function, predictions agree with the collapsed
 SGPR at convergence."""
 
-import os
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gparml_tpu import data
-from gparml_tpu.models import params as P
-from gparml_tpu.models import sgpr, svgp
+from gparml import data
+from gparml.models import params as P
+from gparml.models import sgpr, svgp
 
 
 def _problem(rng, n=400):
@@ -90,12 +89,12 @@ def test_svgp_matches_collapsed_predictions(rng):
 
 
 def test_svgp_sharded_full_batch_matches_single_device(rng):
-    """Mesh-{1,8} ({1,2,8} under GPARML_TPU_SLOW) data-parallel SVGP: with a
+    """Mesh-{1,8} data-parallel SVGP: with a
     FULL global batch the window
     estimator is deterministic (every wraparound window covers the whole
     shard), so one step's loss/gradients and elbo_sharded must match the
-    single-device full-data values exactly (VERDICT r2 item 2)."""
-    from gparml_tpu.parallel import mesh as mesh_lib
+    single-device full-data values exactly."""
+    from gparml.parallel import mesh as mesh_lib
 
     x, y = _problem(rng, n=64)
     cfg = svgp.SVGPConfig(num_inducing=8, batch_size=64)
@@ -103,14 +102,13 @@ def test_svgp_sharded_full_batch_matches_single_device(rng):
 
     # jit'd value_and_grad, ONE compile per mesh size (eager dispatch of the
     # shard_map grads was ~18 s per mesh size); mesh sizes {1, 8} bracket
-    # the invariance claim, {2} is gated slow.
+    # the invariance claim.
     ref, g_ref = jax.jit(
         jax.value_and_grad(lambda p: svgp.elbo(p, x, y, 64, cfg))
     )(p0)
     ref = float(ref)
 
-    sizes = (1, 2, 8) if os.environ.get("GPARML_TPU_SLOW") else (1, 8)
-    for k in sizes:
+    for k in (1, 8):
         m = mesh_lib.make_mesh(k)
         ys, xs, w = mesh_lib.shard_data(m, np.asarray(y), np.asarray(x))
         val, g = jax.jit(jax.value_and_grad(
@@ -126,7 +124,7 @@ def test_svgp_sharded_training_recovers_function(rng):
     """End-to-end data-parallel SVGP training on the 8-device mesh, uneven N
     (padding weights active): recovers the function like the single-device
     path."""
-    from gparml_tpu.parallel import mesh as mesh_lib
+    from gparml.parallel import mesh as mesh_lib
 
     x, y = _problem(rng, n=1001)  # deliberately not divisible by 8
     cfg = svgp.SVGPConfig(num_inducing=12, batch_size=256)
@@ -154,7 +152,7 @@ def test_svgp_sharded_final_elbo_subset_estimate(rng):
     slower than the plain path). With 4·b_local >= n_local the prefix covers
     the whole (shuffled) shard, so the estimate must equal the exact
     elbo_sharded up to f32 summation order."""
-    from gparml_tpu.parallel import mesh as mesh_lib
+    from gparml.parallel import mesh as mesh_lib
 
     n = 65544  # first multiple of 8 above the subset threshold
     x, y = _problem(rng, n=n)
@@ -168,7 +166,7 @@ def test_svgp_sharded_final_elbo_subset_estimate(rng):
     exact = float(svgp.elbo_sharded(res.params, xs, ys, cfg, mesh=m8,
                                     weights=w))
     np.testing.assert_allclose(float(res.elbo), exact, rtol=1e-4)
-    # estimator provenance is explicit (VERDICT r4 item 4): above the
+    # estimator provenance is explicit: above the
     # threshold the result is flagged as a subset estimate with its row count
     assert res.elbo_exact is False
     assert res.elbo_n == n  # 4*b_local >= n_local: the prefix covers all rows
@@ -206,7 +204,7 @@ def test_svgp_plain_final_elbo_estimator_provenance(rng, monkeypatch):
 def test_cli_svgp_multidevice(tmp_path, rng):
     """CLI --optimizer svgp on the local 8-device mesh (the hard-error on
     multi-device SVGP is lifted)."""
-    from gparml_tpu import cli, data as gdata
+    from gparml import cli, data as gdata
 
     x = np.sort(rng.uniform(-2, 2, (120, 1)), axis=0)
     y = np.sin(2 * x) + 0.1 * rng.standard_normal((120, 1))

@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gparml_tpu.parallel import mesh as mesh_lib
-from gparml_tpu.utils import init as init_utils
-from gparml_tpu.utils import logging as glog
-from gparml_tpu.utils import transforms
+from gparml.parallel import mesh as mesh_lib
+from gparml.utils import init as init_utils
+from gparml.utils import logging as glog
+from gparml.utils import transforms
 
 
 @pytest.mark.parametrize("name", ["exp", "softplus"])
@@ -29,7 +29,7 @@ def test_unknown_bijector_raises():
 
 
 def test_softplus_bijector_end_to_end(rng):
-    from gparml_tpu.models import sgpr
+    from gparml.models import sgpr
 
     x = np.sort(rng.uniform(-2, 2, (80, 1)), axis=0)
     y = np.sin(2 * x) + 0.1 * rng.standard_normal((80, 1))
@@ -79,7 +79,7 @@ def test_write_history_jsonl_and_csv(tmp_path):
 
 
 def test_scg_display_smoke(capfd):
-    from gparml_tpu.opt import scg
+    from gparml.opt import scg
 
     def vg(x):
         return jnp.sum(x**2), 2.0 * x
@@ -93,7 +93,7 @@ def test_scg_display_smoke(capfd):
 
 
 def test_distributed_module_surface():
-    from gparml_tpu.parallel import distributed
+    from gparml.parallel import distributed
 
     assert distributed.is_coordinator() in (True, False)
     m = distributed.global_mesh()
@@ -101,10 +101,10 @@ def test_distributed_module_surface():
 
 
 def test_iteration_timer_scoped_per_instance():
-    """ADVICE r3: stamps route to the innermost live timer instance, so
+    """Stamps route to the innermost live timer instance, so
     back-to-back timed fits don't interleave and a nested timer can't
     clobber its parent's stamps."""
-    from gparml_tpu.utils import logging as glog
+    from gparml.utils import logging as glog
 
     with glog.iteration_timer() as t1:
         glog.stamp_iteration(-1)
@@ -125,3 +125,59 @@ def test_iteration_timer_scoped_per_instance():
         glog.stamp_iteration(0)
     assert [i for i, _ in t3.stamps] == [-1, 0]
     assert not glog._ACTIVE_TIMERS
+
+
+def _record_config_updates(monkeypatch):
+    calls = {}
+    monkeypatch.setattr(jax.config, "update",
+                        lambda name, value: calls.__setitem__(name, value))
+    return calls
+
+
+def test_compile_cache_follows_env_var(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, that directory is the cache and
+    no code sets another."""
+    from gparml.utils import compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.cache_dir() == str(tmp_path)
+    calls = _record_config_updates(monkeypatch)
+    assert compile_cache.enable() == str(tmp_path)
+    assert "jax_compilation_cache_dir" not in calls
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch):
+    """Without the variable the cache is <checkout>/.jax_cache, a fixed
+    path computed from the package location."""
+    import os
+
+    import gparml
+    from gparml.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(gparml.__file__)))
+    want = os.path.join(root, ".jax_cache")
+    assert compile_cache.cache_dir() == want
+    calls = _record_config_updates(monkeypatch)
+    compile_cache.enable()
+    assert calls["jax_compilation_cache_dir"] == want
+    assert calls["jax_persistent_cache_min_compile_time_secs"] == 0.0
+
+
+@pytest.mark.parametrize("flag,enabled", [("auto", True), ("none", False)])
+def test_cli_compile_cache_flag(monkeypatch, flag, enabled):
+    """--compile-cache auto turns the shared cache on; none leaves it off.
+    There is no directory argument that could override the variable."""
+    from gparml import cli
+    from gparml.utils import compile_cache
+
+    seen = []
+    monkeypatch.setattr(compile_cache, "enable", lambda: seen.append(1))
+    opts = cli.build_parser().parse_args(
+        ["-i", "in", "-e", "emb", "--compile-cache", flag])
+    with pytest.raises(OSError):     # no input folder: stops after the cache
+        cli.run(opts)
+    assert bool(seen) == enabled
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(
+            ["-i", "in", "-e", "emb", "--compile-cache", "/some/dir"])

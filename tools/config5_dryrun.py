@@ -1,12 +1,12 @@
-"""Scaled-down BASELINE config-5 artifact (VERDICT r2 item 4): the config-5
+"""Scaled-down BASELINE config-5 artifact: the config-5
 SHAPE — GPLVM at M=500, Q=10, D=12, data sharded over a REAL 2-process
-jax.distributed group (4 virtual CPU devices each, the 2-host pod stand-in) —
+jax.distributed group (4 virtual CPU devices each, a 2-host stand-in) —
 run end to end: per-host ingestion, distributed SCG, per-host embedding
 writes, coordinator checkpoint. Asserts a finite monotone bound and reports
 the coordinator's peak RSS.
 
 N defaults to 48k (this container has ONE CPU core; the full config-5
-N=1e7/v5p-64 is pure scale-out of the same program — see docs/DESIGN.md §5).
+N=1e7 is pure scale-out of the same program).
 
 Usage: python tools/config5_dryrun.py [N] [T]
 """
@@ -32,7 +32,7 @@ def main():
     t = int(sys.argv[2]) if len(sys.argv) > 2 else 2
     q, m, d = 10, 500, 12
 
-    from gparml_tpu import data
+    from gparml import data
 
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs")
